@@ -1,4 +1,4 @@
-"""bdd_tpu — TPU-native Lagrange-decomposition ILP solver (FastDOG family).
+"""bdd_tpu — a JAX Lagrange-decomposition ILP solver (FastDOG family).
 
 A from-scratch JAX/XLA/Pallas reimplementation of the LPMP/BDD solver suite:
 0-1 integer linear programs are decomposed into per-constraint binary decision
@@ -9,7 +9,7 @@ ascent), massively parallel over all BDD nodes at equal hop distance.
 Reference architecture (for parity auditing, not code provenance):
   /root/reference — LPMP/BDD, see SURVEY.md.
 
-Layering (mirrors SURVEY.md §1, re-designed TPU-first):
+Layering (mirrors SURVEY.md §1, re-designed for an accelerator):
   bdd_tpu.ilp      — ILP data model + LP/OPB parsers          (ref: include/ILP)
   bdd_tpu.bdd      — BDD construction & flat collection        (ref: include/bdd_collection, bdd_conversion)
   bdd_tpu.solver   — hop-major flattening + JAX/Pallas solvers (ref: include/bdd_solver)

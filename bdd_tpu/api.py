@@ -6,9 +6,9 @@ bdd_solver.h:37-43 / src/bdd_solver/bdd_solver.cpp):
     read ILP -> variable reorder -> normalize -> ILP->BDD -> dual solver ->
     perturbation rounding.
 
-Relaxation solver names (reference names map to TPU backends):
+Relaxation solver names (reference names map to device backends):
     "sequential mma" / "parallel mma"      -> numpy oracle backend (host)
-    "cuda parallel mma" / "jax mma" / "mma" -> JAX dense-scan backend (TPU)
+    "cuda parallel mma" / "jax mma" / "mma" -> JAX bucketed backend (device)
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ DEFAULT_CONFIG = {
     "variable order": "input",  # input|bfs|minimum degree|cuthill
     "use native preprocessing": True,  # C++ host pipeline when applicable
     "normalize constraints": True,
-    "precision": "float",  # float|double (float is TPU-native; double matches the reference CPU default)
+    "precision": "float",  # float|double (double matches the reference CPU default)
     "relaxation solver": "uniform mma",
     "split chunk size": None,  # cap BDD depth (sequence parallelism); int or "auto"
     "split implication": False,  # redundant cross-chunk implication BDD (ref bdd_solver.cpp:108-120)
@@ -335,7 +335,7 @@ class BddSolver:
                 nr_primal_vars=self.pre.nr_primal_variables,
                 dtype=jnp.float64 if double else jnp.float32,
                 # "auto" (default): J-model choice between the contiguous
-                # block partition and the min-cut refinement (BENCH round 5)
+                # block partition and the min-cut refinement
                 partition=self.config.get("partition", "auto"),
             )
             if name.startswith("lbfgs"):
@@ -439,7 +439,7 @@ class BddSolver:
         # "rounding method": "incremental" (reference pipeline default),
         # "wedelin" (the reference implements but never dispatches it,
         # incremental_mm_agreement_rounding.hxx:160 — measurably stronger on
-        # loose flow families: CT -263 -> -305 objective, BENCH.md), or
+        # loose flow families: CT -263 -> -305 objective), or
         # "best" (run both, keep the better objective).
         method = p.get("method", self.config.get("rounding method",
                                                  "incremental"))
@@ -713,7 +713,7 @@ class BddSolver:
 
     def solve_batch(self, ilps=None, paths=None, verbose: bool = True):
         """Solve several INDEPENDENT ILPs as one batched device program
-        (TPU-native serving mode; no reference analogue — DOGE's layer-range
+        (batched serving mode; no reference analogue — DOGE's layer-range
         concatenation, bdd_cuda_torch.py:102-133, is the closest pattern).
         Instances share the bucketed tensors; the delta exchange never mixes
         them (disjoint variable spaces). Returns one result dict per ILP,
@@ -837,7 +837,7 @@ class BddSolver:
         The reference implements tightening but never dispatches it
         (include/bdd_tightening.h); here it is a pipeline phase. Returns the
         (possibly improved) lower bound; the bound never decreases (warm
-        cost transfer, BENCH.md tightening table)."""
+        cost transfer)."""
         from bdd_tpu.solver.tighten import (
             conflict_cuts,
             tight_variables,
@@ -968,9 +968,9 @@ class BddSolver:
 
 def main(argv=None) -> int:
     """CLI: ``python -m bdd_tpu.api config.json`` (ref: bdd_solver_cl.cpp)."""
-    from bdd_tpu.utils.platform import ensure_device
+    from bdd_tpu.utils.platform import device_platform
 
-    ensure_device()
+    device_platform()
     argv = argv if argv is not None else sys.argv[1:]
     if len(argv) != 1:
         print("usage: python -m bdd_tpu.api <config.json | problem.lp>")

@@ -5,7 +5,7 @@ parallel arrays (variable, lo child, hi child) in topological order, root first.
 Terminals are the sentinels ``TOP``/``BOT`` (mirroring the reference's two-sentinel
 scheme, include/bdd_solver/bdd_cuda_base.h:53-55). This replaces the reference's
 ``bdd_collection`` instruction vectors (include/bdd_collection/bdd_collection.h:122-288)
-with a design tailored to feeding the hop-major TPU arrays.
+with a design tailored to feeding the hop-major device arrays.
 
 A BDD here is ordered w.r.t. *its own* variable sequence (one variable per depth
 level). For BDDs built from constraints this coincides with ascending global

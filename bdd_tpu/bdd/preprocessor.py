@@ -9,7 +9,7 @@ Pipeline (ref semantics: src/bdd_conversion/bdd_preprocessor.cpp:123-423):
   5. variables appearing in no constraint get a free single-variable BDD so
      their objective cost is carried by exactly one subproblem
   6. (optional) long BDDs are split into depth-bounded chunks with one-hot
-     auxiliary coupling variables (split_qbdd) — the TPU "sequence parallelism"
+     auxiliary coupling variables (split_qbdd) — the "sequence parallelism"
      that bounds the hop-scan length (ref: bdd_preprocessor.cpp:374-415)
 
 Nonlinear constraints: each degree->=2 monomial m = prod x_v is replaced by a
@@ -227,20 +227,21 @@ class BddPreprocessor:
         return out
 
     def _auto_split_chunk_size(self) -> Optional[int]:
-        """Split-length selection by a TPU cost model (the analog of the
+        """Split-length selection by a cost model (the analog of the
         reference's GPU occupancy model, bdd_preprocessor.cpp:32-121, which
         picks the largest chunk keeping avg kernel occupancy >= 0.5).
 
-        On TPU the scan over hops is the serial axis, so the tallest bucket
-        sets the sequential depth: one scan step is worth ~PACK_LAMBDA padded
-        layer slots of vector work (measured; see uniform.PACK_LAMBDA).
+        The sweep over hops is the serial axis, so the tallest bucket sets
+        the sequential depth: one hop is weighted like PACK_LAMBDA padded
+        layer slots (see uniform.PACK_LAMBDA; not yet re-derived on the
+        H100).
         Splitting a depth-d BDD into chunks of length c removes serial steps
         but each of the ceil(d/c) - 1 cuts adds the w one-hot auxiliary
         coupling variables as w extra layers on BOTH adjacent chunks (2*w
         depth overhead per interior chunk, measured exactly), where w is the
         frontier width at the cut. For each target height L (power-of-two
-        multiple of PACK_H_CAP, so the chunks stay Pallas-eligible at
-        L = PACK_H_CAP) the chunk length is c = L - 2*w_max; minimize
+        multiple of PACK_H_CAP, so the chunks fit the shallow packing tier
+        at L = PACK_H_CAP) the chunk length is c = L - 2*w_max; minimize
         L * PACK_LAMBDA + total coupling slots. Returns None when nothing
         exceeds PACK_H_CAP (no split — short splits only add coupling
         overhead, same spirit as the reference's min split length of 200)."""

@@ -8,7 +8,7 @@ Holds a 0-1 integer linear (or low-degree polynomial) program:
 Parity reference: include/ILP/ILP_input.h:15-133, src/ILP/ILP_input.cpp (data model,
 normalization ILP_input.cpp:300-389, orderings ILP_input.cpp:604-688, reduce :508,
 writers, evaluate/feasible ILP_input.h:147-199). Re-designed in Python; the ILP is
-host-side preprocessing — its output feeds the flattened TPU arrays.
+host-side preprocessing — its output feeds the flattened device arrays.
 """
 from __future__ import annotations
 

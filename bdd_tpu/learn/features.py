@@ -1,6 +1,6 @@
 """Solver-state features for the learned solver.
 
-TPU counterpart of DOGE/model/solver_utils.py:13-157: per-variable,
+JAX counterpart of DOGE/model/solver_utils.py:13-157: per-variable,
 per-subproblem (BDD) and per-layer (edge) feature tensors computed from the
 current solver state, in the uniform bucket layout (layers flattened across
 buckets as [sum H*B]).

@@ -1,6 +1,6 @@
 """Bipartite variable-subproblem GNN predicting per-layer MMA parameters.
 
-TPU/flax counterpart of DOGE's PyG model (DOGE/model/model.py:204-401):
+flax counterpart of DOGE's PyG model (DOGE/model/model.py:204-401):
 several rounds of message passing between variable and BDD nodes through the
 layer (edge) set, followed by heads predicting per-layer distribution-weight
 logits (softmax-normalized per variable downstream) and damping omega

@@ -169,9 +169,8 @@ class ShardedDogeTrainer:
         return loss, out, lstm
 
     def _get_jitted(self):
-        """Jit the whole epoch body once (eager flax is catastrophic on a
-        remote backend — CLAUDE.md gotcha 3 — and re-tracing value_and_grad
-        per epoch is wasteful everywhere)."""
+        """Jit the whole epoch body once (eager flax dispatches one program
+        per op, and re-tracing value_and_grad per epoch is wasteful)."""
         if getattr(self, "_jitted", None) is not None:
             return self._jitted
         cfg = self.cfg

@@ -1,6 +1,6 @@
 """DOGE-style training loop: learn per-layer MMA parameters with a GNN.
 
-TPU counterpart of DOGE/doge.py + train_doge.py: for each instance and each of
+JAX counterpart of DOGE/doge.py + train_doge.py: for each instance and each of
 ``nr_rounds`` dual rounds, the GNN reads solver-state features and predicts
 per-layer (alpha, omega); the solver runs ``iters_per_round`` differentiable
 iterations; the loss is the negated sum of per-BDD lower bounds after delta
@@ -161,9 +161,9 @@ class DogeTrainer:
 
     def init(self, instance: Instance) -> None:
         rng = jax.random.PRNGKey(self.cfg.seed)
-        # jit the feature sweeps (eager per-bucket scans are catastrophic on
-        # a remote backend — CLAUDE.md gotcha 3; host/spec are closure
-        # constants, only the state is traced)
+        # jit the feature sweeps (eager per-bucket scans dispatch one
+        # program per op; host/spec are closure constants, only the state
+        # is traced)
         var_f, bdd_f, edge_f = jax.jit(
             lambda st: ft.compute_features(
                 instance.host, instance.spec, st, instance.objective,
@@ -273,8 +273,8 @@ class DogeTrainer:
     # ---------------------------------------------------------------- training
     def _get_jitted(self, instance: Instance):
         """Per-instance jitted (train_step, rollout_round) — the whole epoch
-        body runs as one compiled program (eager flax on a remote backend
-        triggers a remote compile per op)."""
+        body runs as one compiled program (eager flax dispatches one
+        program per op)."""
         key = id(instance)
         cached = getattr(self, "_jit_cache", None)
         if cached is None:

@@ -25,19 +25,31 @@ class NativeUnsupported(RuntimeError):
     pass
 
 
+def _fresh() -> bool:
+    return os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)
+
+
 def _build_if_needed() -> str:
-    if os.path.exists(_SO):
-        # a prebuilt library without the source tree (wheel deployment) is
-        # usable as-is; only rebuild when the source exists and is newer
-        if not os.path.exists(_SRC):
-            return _SO
-        if os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
-            return _SO
+    """Build ``native/build/libbddhost.so`` from ``native/bdd_host.cpp``
+    unless a build newer than the source exists. The library is never
+    committed: a fresh checkout builds it here, at first use. Concurrent
+    processes (test workers) serialize on a lock file, and the library
+    appears under its name only once complete."""
+    if _fresh():
+        return _SO
+    import fcntl
+
     os.makedirs(os.path.dirname(_SO), exist_ok=True)
-    subprocess.run(
-        ["g++", "-O2", "-std=c++17", "-fopenmp", "-shared", "-fPIC", "-o", _SO, _SRC],
-        check=True,
-    )
+    with open(_SO + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _fresh():
+            tmp = f"{_SO}.{os.getpid()}.tmp"
+            subprocess.run(
+                ["g++", "-O2", "-std=c++17", "-fopenmp", "-shared", "-fPIC",
+                 "-o", tmp, _SRC],
+                check=True,
+            )
+            os.replace(tmp, _SO)
     return _SO
 
 

@@ -1,9 +1,8 @@
 """Persistent serving mode: one warm process, many solves.
 
-The JSON-api CLI pays ~13 s of process/device init + compile-cache loads per
-invocation while the actual solve is ~2 s of device compute (BENCH.md
-"End-to-end"). This server keeps the process (and the in-process jit cache)
-warm: requests are JSON solver configs — the same schema as
+Each run of the JSON-api CLI pays process and device start-up and loads its
+programs from the compile cache before the solve itself. This server keeps
+the process (and the in-process jit cache) warm: requests are JSON solver configs — the same schema as
 ``python -m bdd_tpu.api`` (reference README.md:24-76) — read one per line
 from stdin; one JSON result is written per line to stdout. Repeated solves of
 same-shaped geometries skip compilation entirely.
@@ -13,8 +12,9 @@ Protocol (JSONL):
     {"inputs": ["a.lp", "b.lp"], ...} -> list of results (batched serving)
     {"shutdown": true}                -> {"status": "bye"} and exit
 
-No reference analogue (the reference is a one-shot CLI); this is the serving
-deployment story for the TPU framework.
+No reference analogue (the reference is a one-shot CLI); this is the
+framework's serving deployment. The platform JAX runs on is printed to
+stderr at start.
 
 Usage: python -m bdd_tpu.serve [< requests.jsonl]
 """
@@ -104,9 +104,9 @@ def serve(lines, out) -> int:
 
 
 def main() -> int:
-    from bdd_tpu.utils.platform import ensure_device
+    from bdd_tpu.utils.platform import device_platform
 
-    ensure_device()
+    device_platform()
     print("# bdd_tpu serve: one JSON config per line on stdin; "
           "results on stdout", file=sys.stderr, flush=True)
     serve(sys.stdin, sys.stdout)

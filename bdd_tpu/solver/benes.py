@@ -7,7 +7,7 @@ over the array. Each stage s has a fixed butterfly distance m and applies
 
     y[v] = x[v ^ m] if swap[s][v] else x[v]
 
-which on TPU is a block-swap (reshape/flip) + select — dense vector work, no
+which is a block-swap (reshape/flip) + select — dense vector work, no
 gather/scatter/sort. The network routes out[i] = in[perm[i]].
 
 Construction (host, numpy, fully vectorized, no Python recursion): classic

@@ -1,6 +1,6 @@
 """QBDD collection → hop-major solver arrays.
 
-This is the TPU layout decision at the heart of the framework (SURVEY.md §7):
+This is the layout decision at the heart of the framework (SURVEY.md §7):
 the reference's GPU SoA (include/bdd_solver/bdd_cuda_base.h:183-207) already
 bucketizes BDD nodes by *hop distance* from the root so one kernel sweeps all
 BDDs' hop-h nodes at once. We keep that and produce two views:

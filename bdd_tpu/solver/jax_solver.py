@@ -1,4 +1,4 @@
-"""JAX dense hop-scan solver — the TPU compute path (segment-op backend).
+"""JAX dense hop-scan solver (segment-op backend).
 
 Design (SURVEY.md §7): all BDD nodes at hop distance h across all BDDs form row
 h of static [H, W] arrays; the per-hop wavefront relaxation of the reference's
@@ -11,7 +11,7 @@ terminal nodes are materialized on device.
 Everything here is functional and jit-compatible: geometry arrays are closure
 constants, solver state is a small pytree, iterations run inside ``lax.scan``.
 
-Numerics: float32 by default (TPU-native); float64 available for parity tests
+Numerics: float32 by default; float64 available for parity tests
 via jax_enable_x64.
 """
 from __future__ import annotations
@@ -456,7 +456,7 @@ def lower_bound(geom: DenseGeom, state: SolverState) -> jnp.ndarray:
 @jax.jit
 def bdds_solution(geom: DenseGeom, lo: jnp.ndarray, hi: jnp.ndarray) -> jnp.ndarray:
     """Per-layer 0/1 argmin-path choice of every BDD, [H, L] int8 (garbage at
-    invalid layers). TPU formulation of bdds_solution_cuda
+    invalid layers). Hop-major formulation of bdds_solution_cuda
     (bdd_cuda_base.cu:1104-1233): every hop advances all BDDs' path pointers
     in parallel; dead/pad slots park at index W."""
     W, L = geom.W, geom.L

@@ -1,6 +1,6 @@
 """Differentiable learned-MMA iterations (DOGE solver core).
 
-TPU counterpart of the reference's learned CUDA solver (include/bdd_solver/
+JAX counterpart of the reference's learned CUDA solver (include/bdd_solver/
 bdd_cuda_learned_mma.h, src/.../bdd_cuda_learned_mma.cu): MMA iterations
 parameterized by per-layer distribution weights alpha (how each variable's
 deferred delta is split among its BDD copies; softmax-normalized per variable)

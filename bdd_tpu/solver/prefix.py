@@ -13,7 +13,7 @@ extra column = cheapest TOP-terminal arc, extra absorbing row = the constant)
 the suffix (min,+) products give every hop's cost-from-terminal and the prefix
 products every hop's cost-from-root in O(log H) sequential depth via
 ``jax.lax.associative_scan`` — a formulation the sequential CUDA wavefront
-cannot exploit, but a TPU executes natively (each combine is a tiny min-plus
+cannot exploit, but a vector machine executes natively (each combine is a tiny min-plus
 matrix product, vectorized over all BDD columns).
 
 Used for lower bounds and min marginals; the MMA *iteration* itself is

@@ -146,7 +146,7 @@ def incremental_mm_rounding(
     LP-loose instances the converged duals make most variables ties, and the
     reference's symmetric coin flips can cascade into poor feasible points
     (measured on dense random graph matching: mm rounding -29.9 vs a family
-    greedy's -49.1, BENCH.md primal-quality table); re-injecting the primal
+    greedy's -49.1); re-injecting the primal
     cost preference at ties only — agreeing/inconsistent variables keep the
     reference semantics — repairs this while preserving feasibility logic.
     bias=0 reproduces the reference semantics draw-for-draw."""

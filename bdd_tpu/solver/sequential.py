@@ -7,7 +7,7 @@ against the already-updated forward state, equalized in place (each BDD's mm
 difference is replaced by the average), and the per-BDD frontiers advance with
 the new costs. Converges in fewer iterations than the deferred parallel scheme
 but is inherently serial — kept as a host-side solver and convergence
-reference; the TPU backends implement the parallel deferred variant.
+reference; the device backends implement the parallel deferred variant.
 """
 from __future__ import annotations
 

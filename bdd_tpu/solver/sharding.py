@@ -84,8 +84,8 @@ def shared_width(
 ) -> int:
     """Cost of a partition under the split exchange plans: the shared-region
     width sum_{v shared} max_s cnt[v, s] — each shard's sort must carry one
-    column per shared variable's max-over-shards BDD count (BENCH.md
-    'shared-count-profile floor'). Private variables cost nothing extra."""
+    column per shared variable's max-over-shards BDD count. Private
+    variables cost nothing extra."""
     D = len(parts)
     V = 0
     vars_of = []
@@ -108,9 +108,9 @@ def partition_cost(
     """(N_est, E_est, J) host-side cost proxy of a partition under the split
     exchange plans. N_est = max-shard private column count + shared width
     (the per-shard sort volume); E_est = max-shard layer count (the bucket
-    slots every shard pads to). Measured on the real chip (BENCH round-5
-    A/B): T_shard moves ~1e-8 s per element of EITHER, so J = N_est + E_est
-    ranks partitions without building geometries."""
+    slots every shard pads to). J = N_est + E_est weights both alike (not
+    yet re-derived on the H100) and ranks partitions without building
+    geometries."""
     D = len(parts)
     V = 0
     vars_of = []

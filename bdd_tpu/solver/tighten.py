@@ -168,7 +168,7 @@ def conflict_cliques(
     BDD and the LP optimum is the all-half fractional point where EVERY
     variable is tight — the generic shares-a-tight-variable clusters then
     meld arbitrary edge bags whose conjunctions rarely cut that point
-    (measured ~1% of the gap, BENCH.md tightening table). A clique
+    (measured: ~1% of the gap). A clique
     ``{v_1..v_k}``, k >= 3, melds its C(k,2) edge BDDs into the
     facet-defining ``sum <= 1`` (Padberg's clique inequality), which the
     fractional point violates by k/2 - 1. This finds edge-disjoint greedy
@@ -440,7 +440,7 @@ def tighten_and_resolve(
     solver starts FROM the converged duals (melded layers carry the members'
     summed costs), so its initial bound equals the pre-meld converged bound
     and every iteration only improves it. A cold restart was measured
-    NET-NEGATIVE at equal budget on QAP (-8.6% gap, BENCH.md r2) — the
+    NET-NEGATIVE at equal iterations on QAP (-8.6% gap) — the
     re-solve spent its whole budget re-deriving the pre-meld bound."""
     from bdd_tpu.solver.uniform_wrapper import UniformSolver
 

@@ -1,6 +1,6 @@
-"""Uniform-bucketed TPU backend — the performance compute path.
+"""Uniform-bucketed backend — the performance compute path.
 
-Key observation (TPU-first redesign of the CUDA hop-sweep): in all benchmark
+Key observation (a redesign of the CUDA hop-sweep): in all benchmark
 families the per-(bdd, hop) layer width is tiny (simplex: 2, marginalization /
 cardinality: a handful), while the number of BDDs is huge. So instead of the
 reference's flat hop-major node array with atomic scatter
@@ -12,10 +12,11 @@ and batch BDDs of similar (width, depth) into buckets of dense tensors
 
 The hop relaxation then needs NO gather and NO scatter: child links are
 slot-local indices < P, and both the frontier update and the min-marginal
-reduction become one-hot-masked [P, P, B] elementwise min-reductions — pure
-VPU work on lane-aligned tensors. BDDs are independent within a half-sweep
-(coupling happens only through the per-variable delta between sweeps), so each
-bucket runs as its own ``lax.scan``.
+reduction become one-hot-masked [P, P, B] elementwise min-reductions — dense
+elementwise work along B. BDDs are independent within a half-sweep (coupling
+happens only through the per-variable delta between sweeps), so each bucket
+runs as its own ``lax.scan``, or as one fused GPU kernel
+(``solver/pallas_uniform.py``).
 
 The delta consensus (segment-sum per primal variable + isotropic division) is
 the only irregular op left, executed once per half-sweep.
@@ -115,9 +116,9 @@ class ExchangePlan:
     matrix: slot e of variable v with occurrence rank r lands at row r mod C
     of v's column. Both the scatter into that layout and the gather back to
     slot order are STATIC permutations, executed as ``lax.sort`` with
-    precomputed constant keys — measured ~2x faster than XLA-TPU
-    gather/scatter at these sizes (BENCH.md). The reduction itself becomes a
-    dense sum over the C axis (INF-safe, unlike a cumsum formulation).
+    precomputed constant keys. The reduction itself becomes a dense sum
+    over the C axis (INF-safe, unlike a cumsum formulation). On an H100 the
+    segment-sum exchange measured faster on gm50k (PERF.md).
 
     Heavy-tailed count distributions (e.g. graph matching: mean 2.5 layers
     per variable, max ~100) are handled by CLASS BLOCKS: C is capped small,
@@ -127,11 +128,9 @@ class ExchangePlan:
     size class). Within a class every variable owns exactly W columns, so
     folding the per-column partials into per-variable totals is a dense
     ``reshape(nv, W).sum(1)`` and the re-broadcast a dense repeat — NO
-    scatter/gather anywhere. (The previous design folded extra columns into
-    the primary column with a scatter-add; XLA-TPU scatters run at ~75M
-    elem/s and that "tiny" fold measured 2.9 ms/iter on the 50k-BDD graph
-    matching instance — ~45% of the whole iteration. The class blocks cost
-    only ~5-25%% more sort volume and delete the fold entirely.)
+    scatter/gather anywhere. (The class blocks replace an earlier fold of
+    extra columns into the primary column by a scatter-add; they cost
+    ~5-25% more sort volume and delete the fold entirely.)
 
     ``key_fwd[i]``: target position of flat source i (invalid/padding slots
     fill the unused positions). ``key_inv[t]``: flat destination of target t.
@@ -288,12 +287,10 @@ def build_exchange_plan(
         # wider class blocks; large C pads every light column. All the
         # resulting ops are dense (sort + reshape-sums), so sort volume IS
         # the cost — except in windowed/split plans, whose class totals go
-        # through a [2, nv_heavy] scatter-add + gather pair (XLA-TPU
-        # irregular ops run ~5x slower per element than the sorts):
+        # through a [2, nv_heavy] scatter-add + gather pair:
         # ``class_merge_penalty`` (in sort-volume units per heavy variable)
         # charges that, preventing the degenerate C=1 everyone-is-heavy
-        # layouts (measured: gm50k D=4 split plan with C=1 had 43.7k heavy
-        # vars and its scatter pair ate the entire sort-volume win). With
+        # layouts (gm50k D=4 split plan with C=1: 43.7k heavy vars). With
         # global_counts the inputs (E, layout) are identical on every
         # shard, so all shards pick the same C deterministically.
         best = None
@@ -852,12 +849,12 @@ def attach_exchange_plan(host: UniformHost) -> UniformHost:
     return host._replace(geom=geom._replace(exchange=plan))
 
 
-# One serial scan step costs ~0.5us on-chip vs ~5ns/slot of exchange+sweep
-# volume (measured, local v5e) -> weight a step at ~100 slot-equivalents.
-# E (the padded slot count) is the dominant term: the per-variable delta
-# exchange is ~95% of iteration time at scale and is linear in E.
+# Packing cost model: one serial hop is weighted like PACK_LAMBDA padded
+# layer slots (E, which the exchange volume is linear in). PACK_H_CAP splits
+# each width class into a shallow and a deep tier. Neither is re-derived on
+# the H100 yet.
 PACK_LAMBDA = 128
-PACK_H_CAP = 256  # Pallas eligibility bound (pallas_uniform.enabled)
+PACK_H_CAP = 256
 
 
 def _ffd_pack(depths: np.ndarray, cap: int):
@@ -896,7 +893,7 @@ def _pack_candidates(max_d: int) -> List[int]:
 
 def _pack_eval(deps: np.ndarray, cap: int):
     """FFD-pack ``deps`` under ``cap``; returns (cost, col, row0, H, B)
-    under the shared TPU cost model (bucket area + PACK_LAMBDA per serial
+    under the shared cost model (bucket area + PACK_LAMBDA per serial
     row). The SINGLE source of the model — choose_pack_caps (globally pooled
     caps for sharding) and pack_uniform_host must agree on it."""
     col, row0, nc = _ffd_pack(deps, cap)
@@ -947,8 +944,8 @@ def pack_uniform_host(
     total serial scan steps, and the padded slot count E (exchange volume).
     Per width class the column height is chosen by a cost model
     E_padded + PACK_LAMBDA * height over FFD trials; BDDs deeper than
-    PACK_H_CAP go to a separate (non-Pallas) bucket so the shallow majority
-    keeps the fused kernels. ``caps`` overrides the per-class height choice
+    PACK_H_CAP go to a separate bucket so the deep few do not set the
+    height of the shallow majority. ``caps overrides the per-class height choice
     (one value per (P, tier) key from :func:`choose_pack_caps`) — used by the
     sharded backend to pack every shard identically."""
     geom = host.geom
@@ -1381,10 +1378,12 @@ def _exchange_ids(geom: UniformGeom) -> jnp.ndarray:
 USE_PERM_EXCHANGE = os.environ.get("BDD_TPU_PERM_EXCHANGE", "1") != "0"
 
 # POLICY: float64 configs keep the segment-sum exchange by default so every
-# f64 run stays bit-identical to the numpy oracle (the f64 path is the
-# correctness anchor of the whole test suite; the permutation exchange
-# reassociates the per-variable sums). Opt in to the faster permutation
-# exchange for f64 production runs where bit-parity with the oracle is not
+# f64 run on the CPU stays bit-identical to the numpy oracle (the f64 path is
+# the correctness anchor of the whole test suite; the permutation exchange
+# reassociates the per-variable sums). On a GPU, segment_sum is an atomic
+# scatter whose summation order varies, so there f64 matches the oracle to
+# rounding (relative 1e-9 is checked), not bit for bit. Opt in to the
+# permutation exchange for f64 runs where bit-parity with the oracle is not
 # required:
 _PERM_EXCHANGE_F64 = os.environ.get("BDD_TPU_PERM_EXCHANGE_F64", "0") == "1"
 
@@ -1392,13 +1391,9 @@ _PERM_EXCHANGE_F64 = os.environ.get("BDD_TPU_PERM_EXCHANGE_F64", "0") == "1"
 def _perm_exchange_ok(dtype) -> bool:
     return dtype == jnp.float32 or (_PERM_EXCHANGE_F64 and dtype == jnp.float64)
 
-# Benes routing (solver/benes.py) is a measured DEAD END on current XLA-TPU:
-# correct, 10x fewer passes than the bitonic sort in theory, but the
-# small-distance stages lower to sub-lane shuffles that run ~30x SLOWER than
-# `lax.sort` end to end (191 vs 6.7 ms/iter on the 50k-BDD graph-matching
-# instance). Kept behind BDD_TPU_BENES=1 for future Pallas work (a
-# VMEM-resident applier with a row/lane 3-phase decomposition could revisit
-# this); default off.
+# Benes routing (solver/benes.py): correct, 10x fewer passes than the
+# bitonic sort in theory, but slower than `lax.sort` end to end where it was
+# measured (not measured on the H100). Behind BDD_TPU_BENES=1, default off.
 _BENES_MODE = os.environ.get("BDD_TPU_BENES", "0")
 
 
@@ -1434,8 +1429,8 @@ def _exchange_perm(
     mm_cv = mm_s[:CV].reshape(plan.C, plan.Vx)
     # stacked (lo, hi) glue: every fold/concat/broadcast below runs ONCE on a
     # [2, ...] array instead of twice — on small instances the dense glue
-    # chain is op-count-bound (grid12: 39 us/iter of 177), so halving the op
-    # count matters more than the negligible extra arithmetic
+    # chain is bound by its op count, so halving the op count matters more
+    # than the negligible extra arithmetic
     d_col = jnp.stack(
         [
             jnp.sum(jnp.maximum(-mm_cv, 0.0), axis=0),
@@ -1443,8 +1438,7 @@ def _exchange_perm(
         ]
     )  # [2, Vx] per-column (lo, hi)
     # per-variable totals: light variables ARE their primary column; each
-    # heavy class folds its [2, nv, W] block densely (no scatter — the old
-    # scatter-add fold measured 2.9 ms/iter on GM-50k, ~45% of iteration)
+    # heavy class folds its [2, nv, W] block densely (no scatter)
     d_parts = [d_col[:, : plan.Vp]]
     for base, w, nv in plan.classes:
         d_parts.append(d_col[:, base : base + nv * w].reshape(2, nv, w).sum(2))
@@ -1456,9 +1450,8 @@ def _exchange_perm(
         # every class's members sort ascending = [private..., shared...],
         # making each class's shared totals a dense tail slice too. The
         # psum rides one concat of those slices — NO scatter/gather
-        # anywhere (the earlier scatter-merged variant spent more time in
-        # the [2, nv_heavy] scatter pair than it saved in sort volume:
-        # gm50k D=4 measured 3.1 ms/iter vs 0.2 ms of sweeps).
+        # anywhere (an earlier scatter-merged variant spent more time in
+        # the [2, nv_heavy] scatter pair than it saved in sort volume).
         if delta_reduce is not None:
             b, nsh = plan.split_base, plan.split_len
             merged = d_parts[0]
@@ -1609,34 +1602,40 @@ def exchange_delta(
     return tuple(out_lo), tuple(out_hi)
 
 
-USE_PALLAS = True  # use fused Pallas sweep kernels where applicable
+def _sweep_fns(g, dtype):
+    """The bucket's half-sweep pair: the fused GPU kernels where
+    ``pallas_uniform.enabled`` admits the bucket, the XLA scan otherwise."""
+    from bdd_tpu.solver import pallas_uniform as pu
+
+    if pu.enabled(g, dtype):
+        return (
+            pu.bucket_forward_iteration_pallas,
+            pu.bucket_backward_iteration_pallas,
+        )
+    return xla_sweep_fns(g, dtype)
 
 
-def _sweep_fns(g, dtype=None):
-    if USE_PALLAS and (dtype is None or dtype == jnp.float32):
-        from bdd_tpu.solver import pallas_uniform as pu
-
-        if pu.enabled(g):
-            return (
-                pu.bucket_forward_iteration_pallas,
-                pu.bucket_backward_iteration_pallas,
-            )
+def xla_sweep_fns(g, dtype):
+    """The XLA scan half-sweeps, whatever the backend."""
     return bucket_forward_iteration, bucket_backward_iteration
 
 
 def iteration(
-    geom: UniformGeom, state: UniformState, omega=0.5, delta_reduce=None
+    geom: UniformGeom, state: UniformState, omega=0.5, delta_reduce=None,
+    sweeps=_sweep_fns,
 ) -> UniformState:
     """One full dual MMA iteration over all buckets.
 
     ``delta_reduce``: optional callable applied to the stacked [V+1, 2] delta
-    sums before redistribution — the sharded path passes a psum here."""
+    sums before redistribution — the sharded path passes a psum here.
+    ``sweeps``: (bucket, dtype) -> (forward, backward) half-sweep pair; the
+    default picks per bucket, a caller comparing the two paths fixes one."""
     din_lo, din_hi = exchange_delta(geom, state.def_mm, delta_reduce)
     new_lo, new_hi, new_mm, cfrs = [], [], [], []
     for g, lo, hi, cft, dl, dh in zip(
         geom.buckets, state.lo, state.hi, state.cft, din_lo, din_hi
     ):
-        fwd, _ = _sweep_fns(g, lo.dtype)
+        fwd, _ = sweeps(g, lo.dtype)
         nl, nh, mm, cfr = fwd(g, lo, hi, cft, omega, dl, dh)
         new_lo.append(nl)
         new_hi.append(nh)
@@ -1649,7 +1648,7 @@ def iteration(
     for g, lo, hi, cfr, dl, dh in zip(
         geom.buckets, state.lo, state.hi, cfrs, din_lo, din_hi
     ):
-        _, bwd = _sweep_fns(g, lo.dtype)
+        _, bwd = sweeps(g, lo.dtype)
         nl, nh, mm, cft = bwd(g, lo, hi, cfr, omega, dl, dh)
         new_lo.append(nl)
         new_hi.append(nh)
@@ -1658,15 +1657,18 @@ def iteration(
     return UniformState(tuple(new_lo), tuple(new_hi), tuple(new_mm), tuple(cfts))
 
 
-@functools.partial(jax.jit, static_argnames=("n",))
-def iterations(geom: UniformGeom, state: UniformState, n: int, omega=0.5) -> UniformState:
+@functools.partial(jax.jit, static_argnames=("n", "sweeps"))
+def iterations(
+    geom: UniformGeom, state: UniformState, n: int, omega=0.5,
+    sweeps=_sweep_fns,
+) -> UniformState:
     # NOTE a "lazy exchange" variant (one consensus per iteration, backward
     # half accumulating into the deferred ledger) was tried to halve the
     # dominant exchange cost: the bound stays valid but the dynamics stall
     # far short of the converged dual (grid 8x8x4: -85.97 vs -72.66) — each
     # half-sweep needs FRESH consensus. Do not revisit without a damping fix.
     def body(s, _):
-        return iteration(geom, s, omega), ()
+        return iteration(geom, s, omega, sweeps=sweeps), ()
 
     state, _ = jax.lax.scan(body, state, None, length=n)
     return state
@@ -1743,7 +1745,7 @@ def min_marginals_all(geom: UniformGeom, state: UniformState):
 # --------------------------------------------------- solutions & dual algebra
 @jax.jit
 def bdds_solution(geom: UniformGeom, state: UniformState):
-    """Per-layer 0/1 argmin-path choices, per bucket [H, B] int8 (TPU
+    """Per-layer 0/1 argmin-path choices, per bucket [H, B] int8 (bucketed
     formulation of bdds_solution_cuda, bdd_cuda_base.cu:1104-1233): every
     bucket advances all its BDDs' path pointers one hop per scan step."""
     out = []

@@ -115,10 +115,10 @@ def build_shard_geoms(
             if partition == "mincut":
                 parts = refined
             else:
-                # auto: rank by the measured-calibrated J = sort volume +
+                # auto: rank by the J model = sort volume +
                 # padded layer slots (partition_cost) — shared width alone
                 # mispicks when refinement's balance slack grows the max
-                # shard (gm50k D=2, BENCH round-5 A/B)
+                # shard (gm50k D=2)
                 if partition_cost(collection, refined)[2] < partition_cost(
                     collection, parts
                 )[2]:
@@ -277,7 +277,7 @@ def build_shard_geoms(
                 m_counts = np.maximum(
                     m_counts, np.bincount(rv, minlength=nr_vars)
                 )
-        # candidate per-shard plan families, picked by measured-dominant
+        # candidate per-shard plan families, picked by the dominant
         # cost (sort volume N; ties to the smaller collective payload):
         #   split    — private + shared regions, psum only over variables
         #              touched by >= 2 shards (GM/QAP random couplings,

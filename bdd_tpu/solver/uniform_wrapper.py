@@ -1,4 +1,4 @@
-"""UniformSolver — object wrapper for the bucketed uniform TPU backend.
+"""UniformSolver — object wrapper for the bucketed uniform backend.
 
 Duck-compatible with RefSolver / JaxSolver (run loop, rounding, outer loops).
 """
@@ -139,8 +139,8 @@ class UniformSolver:
 
     def update_layer_costs(self, lo_delta, hi_delta) -> None:
         """Per-layer cost deltas in UniformLayerView (concatenated [H*B])
-        indexing (one jitted program — eager per-bucket device work is
-        catastrophic on a remote backend, CLAUDE.md gotcha 3)."""
+        indexing (one jitted program — eager per-bucket device work
+        dispatches one program per op)."""
         dl_l, dh_l = [], []
         off = 0
         for g in self.geom.buckets:

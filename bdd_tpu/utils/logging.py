@@ -7,7 +7,7 @@ timers accumulate per label and can be dumped at exit / on demand.
 
 Device-level profiling: set BDD_TPU_TRACE=/path/to/dir (or call
 ``device_trace``) to capture a jax.profiler trace (viewable in
-TensorBoard/Perfetto) around the solve — the TPU-native analogue of the
+TensorBoard/Perfetto) around the solve — the device-side analogue of the
 reference's cudaDeviceSynchronize-bracketed kernel timing in debug builds
 (bdd_cuda_parallel_mma.cu:130-132).
 """

@@ -2,11 +2,11 @@
 restart-from-checkpoint of sharded solves.
 
 The reference is strictly single-node — no MPI/NCCL/Gloo anywhere (SURVEY §5
-"distributed communication backend: none") — so this is the TPU framework's
+"distributed communication backend: none") — so this is the framework's
 own multi-host story: one JAX process per host, a global 1-D mesh over all
 devices, and the same per-variable psum consensus that ShardedUniformSolver
-already uses (collectives ride ICI within a slice and DCN across hosts; the
-delta payload is 2*(V+1) floats per half-sweep, independent of BDD count).
+already uses (the delta payload is 2*(V+1) floats per half-sweep,
+independent of BDD count).
 
 CPU dry-runs (CI, no hardware): 2+ processes x N virtual CPU devices with
 Gloo collectives — exercised by tests/test_multihost.py, which kills a
@@ -30,11 +30,12 @@ def initialize(
 ) -> None:
     """Initialize jax.distributed for a multi-process run.
 
-    On TPU pods, call with no arguments (coordinator auto-detected from the
-    TPU environment). For CPU dry-runs pass ``platform="cpu"`` and explicit
-    coordinator/count/id; ``local_device_count`` forces N virtual CPU devices
-    per process (must be set before the first jax import in fresh processes;
-    here it is applied via XLA_FLAGS when possible).
+    Pass the coordinator address (``localhost:<port>`` on one machine), the
+    process count and this process's id: a GPU machine tells JAX of no
+    cluster. For CPU dry-runs also pass ``platform="cpu"``;
+    ``local_device_count`` forces N virtual CPU devices per process (must be
+    set before the first jax import in fresh processes; here it is applied
+    via XLA_FLAGS when possible).
     """
     import os
 

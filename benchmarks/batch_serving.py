@@ -3,8 +3,7 @@
 
 The uniform bucketed layout batches all instances into the same tensors for
 free; the delta exchange never mixes instances (disjoint variables).
-Measured: 64 x 100-node MIS, 100 iterations each — 71.8 ms batched vs 824 ms
-sequential = 11.5x throughput (BENCH.md).
+Default: 64 x 100-node MIS, 100 iterations each, batched vs sequential.
 
 Usage: python benchmarks/batch_serving.py [K] [nodes]
 """
@@ -16,10 +15,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-from bdd_tpu.utils.platform import ensure_device
+from bdd_tpu.utils.platform import device_platform
 
-_platform = ensure_device(tpu_retries=8)
-print(f"# platform: {_platform}")
+device_platform()
 import numpy as np
 
 from bdd_tpu.bdd.preprocessor import BddPreprocessor

@@ -1,8 +1,8 @@
-"""Batched DOGE training throughput (single TPU chip).
+"""Batched DOGE training throughput (one device).
 
 The reference trains with batch_size 8 by concatenating the layer ranges of
 several pickled solvers into one mega-solver per batch
-(DOGE/configs/config_mis.py:8-30, bdd_cuda_torch.py:102-133). The TPU
+(DOGE/configs/config_mis.py:8-30, bdd_cuda_torch.py:102-133). The JAX
 analogue is structural: ``Instance.from_ilps`` lays several ILPs with
 disjoint variable spaces into ONE collection, so the GNN message passing,
 the delta exchange and the differentiable MMA iterations of the whole batch
@@ -24,9 +24,9 @@ import numpy as np
 
 
 def main() -> int:
-    from bdd_tpu.utils.platform import ensure_device
+    from bdd_tpu.utils.platform import device_platform
 
-    ensure_device()
+    device_platform()
     from bdd_tpu.ilp import parse_lp_string
     from bdd_tpu.learn import DogeTrainer, TrainConfig
     from bdd_tpu.learn.train import Instance

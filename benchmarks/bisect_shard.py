@@ -9,9 +9,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bdd_tpu.utils.platform import ensure_device
+from bdd_tpu.utils.platform import device_platform
 
-print(f"# platform: {ensure_device(tpu_retries=8)}", flush=True)
+device_platform()
 
 import numpy as np
 

@@ -1,6 +1,6 @@
-"""Certified time-to-1e-6 via f32 -> f64 escalation (VERDICT r2 #8).
+"""Certified time-to-1e-6 via f32 -> f64 escalation.
 
-The f32 TPU MMA rows of the time-to-gap table resolve 1e-6 at the edge of
+The f32 device MMA rows of the time-to-gap table resolve 1e-6 at the edge of
 f32 bound accumulation (the QAP row's nominal hit shows a 2.8e-6
 f64-evaluated gap). This benchmark runs the documented escalation: f32 MMA
 on the chip until its relative progress stalls near the f32 floor, then
@@ -17,10 +17,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bdd_tpu.utils.platform import ensure_device
+from bdd_tpu.utils.platform import device_platform
 
-_platform = ensure_device(tpu_retries=8)
-print(f"# platform: {_platform}", flush=True)
+device_platform()
 
 import jax.numpy as jnp
 import numpy as np

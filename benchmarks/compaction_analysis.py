@@ -1,5 +1,5 @@
 """Host-side analysis for per-shard COMPACTED-column exchange plans
-(VERDICT r3 #2). For each family and shard count D, report:
+For each family and shard count D, report:
 
   * E_s       — shard-0 slot count (exchange volume in),
   * Vs        — distinct variables the shard touches,

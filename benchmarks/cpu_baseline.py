@@ -2,9 +2,9 @@
 
 Measures the C++ multi-core deferred-MMA solver (native/bdd_host.cpp
 CpuSolver; semantics of the reference's OpenMP parallel solver,
-src/bdd_solver/bdd_parallel_mma_base.cpp:815-1044) on the BENCH.md instance
-families, alongside the numpy oracle for context. These numbers are the
-`vs_baseline` denominators for the TPU rows.
+src/bdd_solver/bdd_parallel_mma_base.cpp:815-1044) on the benchmark
+instance families, alongside the numpy oracle for context. These numbers are
+the `vs_baseline` denominators for the device rows.
 
 Usage: python benchmarks/cpu_baseline.py [family ...]
 """

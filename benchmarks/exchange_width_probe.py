@@ -1,4 +1,4 @@
-"""Exchange byte-reduction probes (VERDICT r3 #6).
+"""Exchange byte-reduction probes.
 
 Sorts are 81-90% of the iteration and run near HBM peak — the remaining
 single-chip lever is bytes moved per sort pass. Variants measured here on
@@ -20,9 +20,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bdd_tpu.utils.platform import ensure_device
+from bdd_tpu.utils.platform import device_platform
 
-print(f"# platform: {ensure_device(tpu_retries=8)}", flush=True)
+device_platform()
 
 import functools
 
@@ -147,17 +147,17 @@ def end_to_end(which="grid12"):
     if N >= 32768:
         print(f"## {which}: N={N} not int16-eligible", flush=True)
         return
-    from benchmarks.multichip_projection import time_iteration
+    from benchmarks.scale_ceiling import time_block
 
     state = uf.init_uniform_state(host, obj)
-    t32 = time_iteration(host.geom, state, 2000)
+    t32 = time_block(host.geom, state, 2000)[0]
     plan16 = dataclasses.replace(
         plan,
         key_fwd=plan.key_fwd.astype(jnp.int16),
         key_inv=plan.key_inv.astype(jnp.int16),
     )
     g16 = host.geom._replace(exchange=plan16)
-    t16 = time_iteration(g16, state, 2000)
+    t16 = time_block(g16, state, 2000)[0]
     print(
         f"## {which} end-to-end: i32 {t32*1e3:.4f} ms/iter, "
         f"i16 {t16*1e3:.4f} ms/iter ({t32/t16:.3f}x)",

@@ -1,9 +1,8 @@
-"""L-BFGS vs plain MMA: wall time to a 1e-3 relative dual gap (single chip).
+"""L-BFGS vs plain MMA: wall time to a 1e-3 relative dual gap (one GPU).
 
 The reference's L-BFGS variant (Roetzer et al. 2023; include/bdd_solver/
 lbfgs_impl.h) accelerates convergence on hard families at the price of
-host-side outer control flow. This reproduces BENCH.md's "time-to-gap"
-protocol for the `lbfgs mma` configuration after the two-loop-recursion
+host-side outer control flow. This runs the "time-to-gap" protocol for the `lbfgs mma` configuration after the two-loop-recursion
 Hessian-scaling fix (the old direction had cosine ~0.5 to the textbook one).
 
 Usage: python benchmarks/lbfgs_gap.py [quick]
@@ -14,12 +13,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bdd_tpu.utils.platform import ensure_device
+from bdd_tpu.utils.platform import device_platform
 
-_platform = ensure_device(tpu_retries=8)
-print(f"# platform: {_platform}")
-if _platform != "tpu":
-    print("# WARNING: not on TPU — numbers are NOT BENCH.md conditions")
+device_platform(require="gpu")
 
 from bdd_tpu.native import NativeHost
 from bdd_tpu.solver.lbfgs import LbfgsSolver

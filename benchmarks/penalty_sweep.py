@@ -8,9 +8,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bdd_tpu.utils.platform import ensure_device
+from bdd_tpu.utils.platform import device_platform
 
-print(f"# platform: {ensure_device(tpu_retries=8)}", flush=True)
+device_platform()
 
 import functools
 
@@ -20,7 +20,7 @@ import numpy as np
 from bdd_tpu.solver import uniform as uf
 from bdd_tpu.solver import uniform_sharded as us
 from benchmarks.compaction_analysis import build
-from benchmarks.multichip_projection import time_iteration
+from benchmarks.scale_ceiling import time_block
 
 
 def main():
@@ -64,7 +64,7 @@ def main():
                 continue
             p = plans[0]
             g = base_geom._replace(exchange=p)
-            t = time_iteration(g, s0, n)
+            t = time_block(g, s0, n)[0]
             nv = sum(nvv for _, _, nvv in p.classes)
             print(
                 f"# {fam} D={D} pen={pen}: C={p.C} N={p.key_fwd.shape[0]} "

@@ -1,6 +1,6 @@
-"""Primal quality at benchmark scale (VERDICT r2 #3).
+"""Primal quality at benchmark scale.
 
-For the BENCH it/s-table families at the same sizes: dual solve + incremental
+For the benchmark families at their benchmark sizes: dual solve + incremental
 perturbation rounding, reporting the dual lower bound, the rounded objective,
 the certified integrality gap, and wall times. The generated instances have
 no known optimum, so the certificate is the dual bound itself:
@@ -33,10 +33,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bdd_tpu.utils.platform import ensure_device
+from bdd_tpu.utils.platform import device_platform
 
-_platform = ensure_device(tpu_retries=8)
-print(f"# platform: {_platform}", flush=True)
+device_platform()
 
 from bdd_tpu.api import BddSolver
 from bdd_tpu.frontends.graph_matching import construct_graph_matching_ilp
@@ -71,7 +70,7 @@ def families(fast: bool):
          "uniform mma", 10000, "incremental"),
         ("ct30x40", lambda: cell_tracking(30, 40, seed=0), "uniform mma",
          2000, "best"),
-        # MMA plateaus at ~4e-2 on GM (BENCH time-to-gap); the reference also
+        # MMA plateaus at ~4e-2 on GM; the reference also
         # ships L-BFGS solvers — use the variant that converges
         ("gm120", gm, "lbfgs jax mma", 1500, "best"),
     ]
@@ -299,9 +298,9 @@ def greedy_baseline(name, ilp):
 
 
 def certified_bound(name, build):
-    """f64-evaluated CONVERGED dual bound (the certificate, VERDICT r3 #5):
+    """f64-evaluated CONVERGED dual bound (the certificate):
     native f64 long run; the families where plain MMA plateaus far from the
-    optimum (GM / CT / set cover, BENCH time-to-gap) get a device L-BFGS
+    optimum (GM / CT / set cover) get a device L-BFGS
     polish first, transferred exactly into the native f64 state
     (extras.transfer_costs_to_native — the f32->f64 escalation path)."""
     import numpy as np
@@ -339,7 +338,7 @@ def certified_bound(name, build):
 
 def exact_rows(fast: bool, only):
     """Companion rows with an EXACT certificate at sizes where it closes
-    (VERDICT r3 #5b): the same solve+round pipeline, gap measured against a
+    the same solve+round pipeline, gap measured against a
     true optimum — brute force (set cover), full BDD meld (MIS), or the
     solve_easy_variables-reduced core solved exhaustively (cell tracking,
     the reference's FastDOG+Gurobi hybrid with the framework-native exact

@@ -1,8 +1,8 @@
-"""Warm-serving latency on the real chip: one process, repeated solves.
+"""Warm-serving latency on one GPU: one process, repeated solves.
 
 Measures (a) cold first solve, (b) warm same-geometry re-solve, (c) new
 instance with the same geometry (jit-cache hit), for the 12x12x4 grid MRF
-with rounding. Run AFTER the relay is healthy; see CLAUDE.md gotcha 5.
+with rounding. Run nothing else on the card meanwhile.
 
 Usage: python benchmarks/serve_latency.py
 """
@@ -12,10 +12,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bdd_tpu.utils.platform import ensure_device
+from bdd_tpu.utils.platform import device_platform
 
-_platform = ensure_device(tpu_retries=8)
-print(f"# platform: {_platform}")
+device_platform()
 
 from bdd_tpu.serve import handle_request
 from bdd_tpu.utils.problems import grid_mrf

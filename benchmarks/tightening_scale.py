@@ -18,9 +18,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bdd_tpu.utils.platform import ensure_device
+from bdd_tpu.utils.platform import device_platform
 
-print(f"# platform: {ensure_device(tpu_retries=8)}", flush=True)
+device_platform()
 
 import numpy as np
 
@@ -106,7 +106,7 @@ def run(name, ilp, budgets=(20000, 200000), cliques=False, cuts=None,
     print(f"[{name}] tight vars: {len(tv)} / {nv}", flush=True)
     explicit = None
     if cuts is not None:
-        # conflict-graph separation (VERDICT r4 #3 A/B): 'cliques' = clique
+        # conflict-graph separation (A/B): 'cliques' = clique
         # facets only; 'cliques+odd' = cliques, then odd-cycle inequalities
         # over the edges no clique consumed (tighten.conflict_cuts — the
         # stacked pipeline default)

@@ -1,4 +1,4 @@
-"""DOGE-Train demo at benchmark scale (single TPU chip).
+"""DOGE-Train demo at benchmark scale (one device).
 
 Protocol modeled on the reference MIS setup (DOGE/configs/config_mis.py:8-30,
 scaled to this environment): Erdos-Renyi independent-set instances, train the
@@ -37,9 +37,9 @@ from bdd_tpu.utils.problems import (
 
 
 def main() -> int:
-    from bdd_tpu.utils.platform import ensure_device
+    from bdd_tpu.utils.platform import device_platform
 
-    print(f"# platform: {ensure_device(tpu_retries=8)}")
+    device_platform()
     nodes = int(sys.argv[1]) if len(sys.argv) > 1 else 120
     epochs = int(sys.argv[2]) if len(sys.argv) > 2 else 25
     family = sys.argv[3] if len(sys.argv) > 3 else "mis"

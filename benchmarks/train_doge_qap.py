@@ -19,10 +19,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bdd_tpu.utils.platform import ensure_device
+from bdd_tpu.utils.platform import device_platform
 
-_platform = ensure_device(tpu_retries=8)
-print(f"# platform: {_platform}", flush=True)
+device_platform()
 
 
 from bdd_tpu.learn.configs import config_qaplib
@@ -93,9 +92,8 @@ def main():
         ilp = make_ilps([seed], qap_n)[0]
         inst = Instance.from_ilp(ilp)
 
-        # converged reference bound: native C++ double MMA long run (real
-        # f64 — on-TPU f64 is emulated on v5e and crashed the worker) + a
-        # TPU L-BFGS polish run
+        # converged reference bound: native C++ double MMA long run (f64,
+        # independent of the device code) + a device L-BFGS polish run
         from bdd_tpu import native
         from bdd_tpu.bdd.preprocessor import BddPreprocessor
 

@@ -1,4 +1,4 @@
-"""Dataset-driven DOGE training, end to end (VERDICT r3 #4).
+"""Dataset-driven DOGE training, end to end.
 
 One command reproduces the reference's train path shape
 (DOGE/train_doge.py:20-37 -> disk_dataloader.py): a directory of .lp
@@ -19,10 +19,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bdd_tpu.utils.platform import ensure_device
+from bdd_tpu.utils.platform import device_platform
 
-_platform = ensure_device(tpu_retries=8)
-print(f"# platform: {_platform}", flush=True)
+device_platform()
 
 import numpy as np
 

@@ -6,7 +6,7 @@
 // inequality->BDD construction by layered DP with bottom-up state merging
 // (same canonical result as the interval dedup of src/bdd_conversion/
 // lineq_bdd.cpp), quasi-reduction (ref: bdd_collection make_qbdd) and the
-// uniform-bucket flattening feeding the TPU solver. Exposed as a C ABI for
+// uniform-bucket flattening feeding the device solver. Exposed as a C ABI for
 // ctypes (no pybind11 in this environment).
 //
 // Single translation unit by design: the whole pipeline shares one arena-ish
@@ -2032,7 +2032,7 @@ void bh_cpu_get_costs(void* s, double* lo, double* hi, double* mm) {
 }
 
 // warm-start the f64 solver from externally computed duals (e.g. the f32
-// TPU state at its precision floor — the escalation path that certifies
+// device state at its precision floor — the escalation path that certifies
 // 1e-6 gaps at the reference's default double precision). Invalidates the
 // cached backward run.
 void bh_cpu_set_costs(void* s, const double* lo, const double* hi,

@@ -379,7 +379,7 @@ def test_rounding_method_config():
     but never dispatches it (incremental_mm_agreement_rounding.hxx:160);
     here it is a config choice ('best' runs both from the same snapshot and
     keeps the better objective — measured 16% better on loose flow
-    families, BENCH.md)."""
+    families)."""
     from bdd_tpu.api import BddSolver
     from bdd_tpu.utils.problems import cell_tracking
 
@@ -401,8 +401,8 @@ def test_rounding_method_config():
 def test_rounding_objective_bias():
     """'incremental biased': objective-tilted tie-breaking (rounding.py
     objective_tilt). On dense random graph matching the reference's
-    symmetric coin flips collapse assignments to slack (BENCH.md
-    primal-quality: gm120 obj -29.9 vs greedy -49.1); the tilt re-injects
+    symmetric coin flips collapse assignments to slack (gm120 obj -29.9
+    vs greedy -49.1); the tilt re-injects
     the primal cost preference at EQUAL variables only. bias=0 must
     reproduce the reference semantics draw-for-draw."""
     import numpy as np

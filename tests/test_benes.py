@@ -1,7 +1,7 @@
 """Benes-network routing: construction correctness + exchange parity.
 
-The Benes exchange mode is off by default (measured slower than lax.sort on
-current XLA-TPU, see BENCH.md) but must stay exactly correct.
+The Benes exchange mode is off by default (measured slower than lax.sort
+where it was measured) but must stay exactly correct.
 """
 import numpy as np
 import pytest

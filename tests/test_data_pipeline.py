@@ -178,8 +178,7 @@ def test_trainer_runs_from_disk_dataset(tmp_path):
 
 @needs_native
 def test_sharded_trainer_from_disk_dataset(tmp_path):
-    """Dataset -> sharded DOGE training over the virtual mesh (VERDICT r3
-    #4): the dataset supplies discovery + converged-dual reference bound;
+    """Dataset -> sharded DOGE training over the virtual mesh: the dataset supplies discovery + converged-dual reference bound;
     the sharded trainer runs the rollout with psum consensus and training
     reduces the loss. The learned sharded rollout's bound must be sane
     against the cached converged bound."""

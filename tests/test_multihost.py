@@ -1,6 +1,6 @@
 """Multi-host (2-process) sharded solving with kill + restart-from-checkpoint.
 
-SURVEY §5: the reference has no distributed backend; the TPU framework must
+SURVEY §5: the reference has no distributed backend; the framework must
 supply its own multi-host checkpoint/restart story. This dryrun launches a
 REAL 2-process x 4-virtual-CPU-device jax.distributed run (Gloo collectives):
 

@@ -73,7 +73,7 @@ def test_parallel_mma_float_binary_mrf():
 
 
 def test_tpu_mma_qap():
-    """config: batched TPU mma on a (tiny) QAPLIB-style instance with
+    """config: batched device mma on a (tiny) QAPLIB-style instance with
     quadratic terms."""
     ilp = quadratic_assignment(3, seed=2, density=0.6)
     opt = fixtures.qap_optimum(ilp, 3)

@@ -78,8 +78,8 @@ End"""
 
 def test_auto_split_chunk_size():
     """"auto" split length: no split when every BDD is shallower than the
-    Pallas depth cap; deep cardinality chains get split to a power-of-two
-    chunk chosen by the TPU cost model (serial scan steps vs coupling slots)."""
+    shallow packing tier (PACK_H_CAP); deep cardinality chains get split to a power-of-two
+    chunk chosen by the cost model (serial scan steps vs coupling slots)."""
     from bdd_tpu.ilp.model import ILPInput, Ineq
     from bdd_tpu.solver.uniform import PACK_H_CAP
 
@@ -98,7 +98,7 @@ def test_auto_split_chunk_size():
     pre = BddPreprocessor(parse_lp_string(ilp.write_lp()),
                           split_chunk_size="auto")
     assert pre.nr_aux_variables > 0  # split happened
-    # every chunk stays Pallas-eligible (depth <= PACK_H_CAP incl. the
+    # every chunk fits the shallow tier (depth <= PACK_H_CAP incl. the
     # 2*w coupling-layer overhead the auto model accounts for)
     for b in range(pre.collection.nr_bdds()):
         levels = pre.collection.node_levels(b)

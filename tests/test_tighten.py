@@ -237,7 +237,7 @@ def test_clique_tighten_cuts_triangle_instantly():
 def test_clique_tighten_beats_generic_on_mis():
     """Random MIS: the clique melds close far more of the integrality gap
     than the generic tight-variable clusters at the same budget (the
-    measured motivation for conflict_cliques — BENCH.md tightening table)."""
+    measured motivation for conflict_cliques)."""
     ilp = _mis_ilp(40, 0.25, seed=1)
     finals = {}
     for mode in (False, True):
